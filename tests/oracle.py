@@ -3,7 +3,7 @@
 A deliberately naive, loop-structured float64 implementation of the
 reference gps_test pipeline (reference: c/search_offline.cpp), written
 directly from the algorithm spec in SURVEY.md.  Used only in tests to
-cross-check the TPU implementation's decisions; shares no code with
+cross-check the JAX implementation's decisions; shares no code with
 tpu_gnss beyond the C/A tap table.
 """
 

@@ -25,7 +25,7 @@ def _acq(cfg, bits):
 
 
 def test_grid_matches_oracle():
-    """TPU-style batched grid == loop-form oracle on the same data."""
+    """Batched-grid engine == loop-form oracle on the same data."""
     cfg = SMALL
     rng = np.random.default_rng(7)
     # synthesize PRN 5 with a real Doppler so the grid has structure

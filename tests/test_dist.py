@@ -105,7 +105,7 @@ def test_channel_sharded_tracking_matches_single():
 
 
 def test_folded_mxu_sharded_matches_single():
-    """Sharded folded-MXU acquisition == single-device mxu engine."""
+    """Block+Doppler sharded folded acquisition == single-device engine."""
     from tpu_gnss.acquire import folded as F
 
     cfg = ReceiverConfig(fs=1.024e6, fc=0.256e6, max_fo=5000.0,
@@ -120,15 +120,14 @@ def test_folded_mxu_sharded_matches_single():
              + 1j * rng.standard_normal(s.block_len)).astype(np.complex64)
     blocks = jnp.asarray(np.stack([iq0, noise, iq0, noise]))
 
-    want = s.acquire(iq=jnp.asarray(iq0), engine="mxu")
+    want = s.acquire(iq=jnp.asarray(iq0))
 
     mesh = shard.make_mesh(8, axes=("blk", "dop"), shape=(2, 4))
-    cw_r, cw_i = s.mxu_code_planes()
     dops = shard.pad_dops(np.asarray(s.dops_hz), 4, 2)
     got = shard.acquire_folded_sharded(
-        blocks, cw_r, cw_i, jnp.asarray(dops), mesh=mesh, fs=cfg.fs,
+        blocks, s.code_ffts_p, jnp.asarray(dops), mesh=mesh, fs=cfg.fs,
         lo_rate=cfg.lo_rate, n_coherent=s.n_coherent, dop_chunk=2,
-        period=s.period, nf=s.nf, from_bits=False, interpret=True)
+        period=s.period, from_bits=False)
 
     for b in (0, 2):
         assert int(got.ca_shift[b][16]) == int(want.ca_shift[16])
@@ -157,11 +156,10 @@ def test_distributed_receiver_full_chain_equality():
                          snr_threshold=20.0)
     mesh = shard.make_mesh(4, axes=("dop",))
 
-    # single-device run on the same engine family (fused kernel +
-    # shared refinement arithmetic) so the comparison isolates the
+    # single-device run on the same engine family (chunked grid reduce
+    # + shared refinement arithmetic) so the comparison isolates the
     # sharding, not the engine
-    single = Receiver(cfg, acq_engine="mxu").process_iq(iq,
-                                                        max_channels=12)
+    single = Receiver(cfg).process_iq(iq, max_channels=12)
     dist = Receiver(cfg, mesh=mesh).process_iq(iq, max_channels=12)
 
     assert dist.solutions and single.solutions

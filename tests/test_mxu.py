@@ -1,9 +1,10 @@
-"""Fused MXU correlate-reduce kernel: equivalence with the XLA engine.
+"""Chunked grid reduce (the refined cold search's grid stage) and the
+four-step DFT factorization of the tracking correlator.
 
-Runs in Pallas interpreter mode on the CPU mesh; the kernel math
-(four-step IDFT as two complex matmuls, wrap-folded code spectra, masked
-peak/sum/first-max-lag) must reproduce the XLA folded engine's decisions
-exactly and its SNR values to bf16 tolerance.
+The per-chunk peak/lag/total reduce must reproduce a float64 np.fft
+oracle of the same wiped, zero-padded circular correlation, and the
+one-program refined search must make the same decisions as the full
+power-grid path it replaces on the cold-start critical path.
 """
 
 import numpy as np
@@ -12,147 +13,81 @@ import pytest
 
 from tpu_gnss.config import ReceiverConfig
 from tpu_gnss.acquire import folded as F
-from tpu_gnss.ops import mxu_corr
 from tpu_gnss.signal import synth
+from tpu_gnss.track.channel import split_nf
 
 
 def test_split_nf():
-    assert mxu_corr.split_nf(16384) == (128, 128)
-    assert mxu_corr.split_nf(1024) == (8, 128)
-    assert mxu_corr.split_nf(10000) == (100, 100)
+    assert split_nf(16384) == (128, 128)
+    assert split_nf(1024) == (8, 128)
+    assert split_nf(10000) == (100, 100)
     with pytest.raises(ValueError):
-        mxu_corr.split_nf(9973)  # prime
+        split_nf(9973)  # prime
 
 
-def test_corr_reduce_matches_numpy():
-    rng = np.random.default_rng(0)
-    nf, period, n_sv, rows = 1024, 1000, 4, 6
-    n1, n2 = mxu_corr.split_nf(nf)
-    g = rng.standard_normal((rows, nf)) + 1j * rng.standard_normal((rows, nf))
-    code = (rng.standard_normal((n_sv, nf))
-            + 1j * rng.standard_normal((n_sv, nf)))
-    prod = code[None, :, :] * g[:, None, :]
-    lin = np.fft.ifft(prod, axis=-1)
-    circ = lin[..., :period] + lin[..., nf - period:]
-    pw = np.abs(circ) ** 2
-    cw_r, cw_i = mxu_corr.wrap_code_planes(code, period)
-    g_r = jnp.asarray(g.real.astype(np.float32).reshape(rows, n1, n2))
-    g_i = jnp.asarray(g.imag.astype(np.float32).reshape(rows, n1, n2))
-    peak, lag, tot = mxu_corr.corr_reduce(
-        g_r, g_i, jnp.asarray(cw_r), jnp.asarray(cw_i), period=period,
-        interpret=True)
-    assert (np.asarray(lag) == pw.argmax(-1)).all()
-    np.testing.assert_allclose(np.asarray(peak) / nf ** 2, pw.max(-1),
-                               rtol=0.02)
-    np.testing.assert_allclose(np.asarray(tot) / nf ** 2, pw.sum(-1),
-                               rtol=0.02)
+def _oracle_power(x, code, dops, fs, nf, period):
+    """float64 |circ corr|^2 ``[B, sv, dop, P]`` of wiped blocks ``x``."""
+    n = np.arange(period)
+    wipe = np.exp(-2j * np.pi * np.outer(dops, n) / fs)      # [dop, P]
+    g = np.fft.fft(x[:, None, :] * wipe[None], n=nf, axis=-1)
+    lin = np.fft.ifft(code[None, :, None, :] * np.conj(g)[:, None],
+                      axis=-1)
+    circ = (lin[..., :period] + lin[..., nf - period:]
+            if nf != period else lin[..., :period])
+    return np.abs(circ) ** 2
+
+
+def _plain_reduce(x, code, dops, fs, period, accumulate):
+    return F._corr_reduce_grid(
+        jnp.asarray(x.astype(np.complex64)),
+        jnp.asarray(code.astype(np.complex64)),
+        jnp.asarray(np.asarray(dops, np.float32)), fs=fs, n_coherent=1,
+        dop_chunk=2, period=period, accumulate=accumulate)
 
 
 def test_fold_corr_reduce_matches_numpy():
-    """Fused forward-DFT + product + inverse + reduce vs np.fft oracle."""
+    """Wipe + padded FFT + product + inverse + reduce vs np.fft oracle,
+    with NF > P so the circular wrap of the linear correlation is
+    exercised, and an odd Doppler count so chunk padding is too."""
     rng = np.random.default_rng(2)
     nf, period, n_sv, rows = 1024, 1000, 4, 5
-    n1, n2 = mxu_corr.split_nf(nf)
-    u_rows = mxu_corr.fused_tables(nf, period)[0]
+    fs = period * 1000.0
+    dops = [-500.0, 0.0, 700.0]
     x = (rng.standard_normal((rows, period))
          + 1j * rng.standard_normal((rows, period)))
     code = (rng.standard_normal((n_sv, nf))
             + 1j * rng.standard_normal((n_sv, nf)))
-    # oracle: circular correlation recovered from the padded linear one
-    # (the kernel folds the equivalent wrap factor into the code spectra)
-    g = np.fft.fft(x, n=nf, axis=-1)
-    lin = np.fft.ifft(code[None] * np.conj(g)[:, None, :], axis=-1)
-    circ = (lin[..., :period] + lin[..., nf - period:]
-            if nf != period else lin[..., :period])
-    pw = np.abs(circ) ** 2
-    cw_r, cw_i = mxu_corr.fold_code_planes_T(code, period)
-    xp = np.pad(x, ((0, 0), (0, u_rows * n1 - period)))
-    x_r = jnp.asarray(xp.real.astype(np.float32).reshape(rows, u_rows, n1))
-    x_i = jnp.asarray(xp.imag.astype(np.float32).reshape(rows, u_rows, n1))
-    peak, lag, tot = mxu_corr.fold_corr_reduce(
-        x_r, x_i, jnp.asarray(cw_r), jnp.asarray(cw_i), period=period,
-        nf=nf, interpret=True)
-    assert (np.asarray(lag) == pw.argmax(-1)).all()
-    np.testing.assert_allclose(np.asarray(peak) / nf ** 2, pw.max(-1),
-                               rtol=0.03)
-    np.testing.assert_allclose(np.asarray(tot) / nf ** 2, pw.sum(-1),
-                               rtol=0.03)
+    pw = _oracle_power(x, code, dops, fs, nf, period)      # [B, sv, d, P]
+    peak, lag, tot = (np.asarray(a)[..., :len(dops)] for a in
+                      _plain_reduce(x, code, dops, fs, period, False))
+    assert peak.shape == (rows, n_sv, len(dops))
+    assert (lag == pw.argmax(-1)).all()
+    np.testing.assert_allclose(peak, pw.max(-1), rtol=1e-3)
+    np.testing.assert_allclose(tot, pw.sum(-1), rtol=1e-3)
 
 
 def test_fold_corr_reduce_noncoherent():
-    """n_acc axis sums |corr|^2 across blocks before the peak search."""
+    """accumulate=True sums |corr|^2 across blocks before the reduce."""
     rng = np.random.default_rng(5)
     nf = period = 1024
-    n_sv, rows, n_acc = 2, 3, 2
-    n1, _ = mxu_corr.split_nf(nf)
-    u_rows = mxu_corr.fused_tables(nf, period)[0]
-    x = (rng.standard_normal((rows, n_acc, period))
-         + 1j * rng.standard_normal((rows, n_acc, period)))
+    fs = period * 1000.0
+    n_sv, n_acc = 2, 3
+    dops = [0.0, 250.0]
+    x = (rng.standard_normal((n_acc, period))
+         + 1j * rng.standard_normal((n_acc, period)))
     code = (rng.standard_normal((n_sv, nf))
             + 1j * rng.standard_normal((n_sv, nf)))
-    g = np.fft.fft(x, axis=-1)
-    circ = np.fft.ifft(code[None, None] * np.conj(g)[:, :, None, :],
-                       axis=-1)
-    pw = (np.abs(circ) ** 2).sum(axis=1)          # [rows, n_sv, period]
-    cw_r, cw_i = mxu_corr.fold_code_planes_T(code, period)
-    x_r = jnp.asarray(x.real.astype(np.float32).reshape(
-        rows, n_acc, u_rows, n1))
-    x_i = jnp.asarray(x.imag.astype(np.float32).reshape(
-        rows, n_acc, u_rows, n1))
-    peak, lag, tot = mxu_corr.fold_corr_reduce(
-        x_r, x_i, jnp.asarray(cw_r), jnp.asarray(cw_i), period=period,
-        nf=nf, interpret=True)
-    assert (np.asarray(lag) == pw.argmax(-1)).all()
-    np.testing.assert_allclose(np.asarray(peak) / nf ** 2, pw.max(-1),
-                               rtol=0.03)
-
-
-def test_mxu_engine_matches_xla_decisions():
-    """Same PRN/doppler/ca_shift as the XLA engine on a synthetic scene."""
-    cfg = ReceiverConfig(fs=1.024e6, fc=0.256e6, max_fo=5000.0,
-                         fft_len=4096)
-    s = F.FoldedSearcher(cfg, n_coherent=4, dop_chunk=8)
-    svs = [synth.SvSignal(prn=7, doppler_hz=1800.0, code_phase_chips=303.0),
-           synth.SvSignal(prn=21, doppler_hz=-2500.0,
-                          code_phase_chips=777.0, amplitude=0.8)]
-    iq = synth.synth_baseband(svs, cfg.fs, s.block_len, noise_std=0.4,
-                              seed=3)
-    res_x = s.acquire(iq=iq)
-    res_m = s.acquire(iq=iq, engine="mxu")
-    snr_x, snr_m = np.asarray(res_x.snr), np.asarray(res_m.snr)
-    assert (np.asarray(res_m.ca_shift) == np.asarray(res_x.ca_shift))[
-        [6, 20]].all()
-    assert (np.asarray(res_m.doppler_hz) == np.asarray(res_x.doppler_hz))[
-        [6, 20]].all()
-    np.testing.assert_allclose(snr_m[[6, 20]], snr_x[[6, 20]], rtol=0.02)
-    # detections agree end-to-end
-    det_x = {d["prn"] for d in s.detections(res_x)}
-    det_m = {d["prn"] for d in s.detections(res_m)}
-    assert det_x == det_m == {7, 21}
-
-
-def test_mxu_engine_noncoherent_matches_xla():
-    """Non-coherent accumulation inside the kernel == XLA grid sums."""
-    cfg = ReceiverConfig(fs=1.024e6, fc=0.256e6, max_fo=5000.0,
-                         fft_len=4096)
-    s = F.FoldedSearcher(cfg, n_coherent=2, dop_chunk=8)
-    sv = synth.SvSignal(prn=13, doppler_hz=900.0, code_phase_chips=42.0,
-                        amplitude=0.35)  # weak: needs accumulation
-    iq = synth.synth_baseband([sv], cfg.fs, 3 * s.block_len,
-                              noise_std=1.0, seed=11)
-    res_x = s.acquire(iq=iq, n_noncoherent=3)
-    res_m = s.acquire(iq=iq, n_noncoherent=3, engine="mxu")
-    i = 12
-    assert int(np.asarray(res_m.ca_shift)[i]) == \
-        int(np.asarray(res_x.ca_shift)[i])
-    assert float(np.asarray(res_m.doppler_hz)[i]) == \
-        float(np.asarray(res_x.doppler_hz)[i])
-    np.testing.assert_allclose(np.asarray(res_m.snr)[i],
-                               np.asarray(res_x.snr)[i], rtol=0.02)
+    pw = _oracle_power(x, code, dops, fs, nf, period).sum(0)   # [sv, d, P]
+    peak, lag, tot = (np.asarray(a) for a in
+                      _plain_reduce(x, code, dops, fs, period, True))
+    assert peak.shape == (1, n_sv, len(dops))
+    assert (lag[0] == pw.argmax(-1)).all()
+    np.testing.assert_allclose(peak[0], pw.max(-1), rtol=1e-3)
+    np.testing.assert_allclose(tot[0], pw.sum(-1), rtol=1e-3)
 
 
 def test_detections_refined_fast_matches_grid_refine():
-    """MXU detect + window refine == full-grid refine on the same scene."""
+    """Chunked detect + window refine == full-grid refine on one scene."""
     cfg = ReceiverConfig(fs=1.024e6, fc=0.256e6, max_fo=5000.0,
                          fft_len=4096)
     s = F.FoldedSearcher(cfg, n_coherent=4, dop_chunk=8)

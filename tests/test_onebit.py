@@ -1,4 +1,4 @@
-"""Device-side packed 1-bit frontend tests (XLA + Pallas interpret)."""
+"""Device-side packed 1-bit frontend tests."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -51,26 +51,6 @@ def test_mix_packed_phase_continuity(rng):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_pack_bits_planes_layout(rng):
-    bits = rng.integers(0, 2, 4096 * 2).astype(np.uint8)
-    words = onebit.pack_bits_planes(bits)
-    assert words.shape == (2, 128)
-    # word (r, c) bit k == capture bit r*4096 + k*128 + c
-    for (r, c, k) in [(0, 0, 0), (0, 5, 3), (1, 127, 31), (1, 64, 7)]:
-        assert ((int(words[r, c]) >> k) & 1) == bits[r * 4096 + k * 128 + c]
-
-
-def test_mix_packed_pallas_interpret(rng):
-    cfg = NOTTINGHAM
-    n = 4096 * 16  # 2 grid blocks of 8 rows
-    bits = rng.integers(0, 2, n).astype(np.uint8)
-    words = jnp.asarray(onebit.pack_bits_planes(bits))
-    want = np.asarray(mix_baseband(jnp.asarray(bits), cfg.lo_rate))
-    got = np.asarray(onebit.mix_packed_pallas(
-        words, n_bits=n, lo_rate=cfg.lo_rate, interpret=True))
-    np.testing.assert_allclose(got, want, atol=1e-5)
-
-
 def test_acquire_packed_matches_regular():
     from tpu_gnss.config import ReceiverConfig
     from tpu_gnss.acquire.folded import FoldedSearcher
@@ -83,7 +63,7 @@ def test_acquire_packed_matches_regular():
                               seed=2)
     bits = synth.baseband_to_1bit_if(iq, cfg.fc, cfg.fs)
     want = f.acquire(bits=bits)
-    got = f.acquire_packed(bits)  # CPU -> XLA unpack path
+    got = f.acquire_packed(bits)
     assert int(got.ca_shift[12]) == int(want.ca_shift[12])
     np.testing.assert_allclose(float(got.snr[12]), float(want.snr[12]),
                                rtol=1e-5)

@@ -160,14 +160,14 @@ def test_adsb_waveform_roundtrip(tmp_path):
 
     icao, lat0, lon0 = 0x3C6444, 51.9, -1.25
     frames = [
-        adsb.frame_identification(icao, "TPU9TST"),
+        adsb.frame_identification(icao, "GNSS9TST"),
         adsb.frame_airborne_position(icao, lat0, lon0, 12000, odd=False),
         adsb.frame_airborne_position(icao, lat0, lon0, 12000, odd=True),
     ]
     iq = adsb.modulate(frames)
     got = [adsb.decode_frame(fr) for fr in adsb.demodulate(iq)]
     assert len(got) == 3
-    assert got[0]["callsign"] == "TPU9TST"
+    assert got[0]["callsign"] == "GNSS9TST"
     assert all(g["icao"] == icao for g in got)
     assert got[1]["alt_ft"] == 12000
     lat, lon = adsb.cpr_decode_global(got[1]["cpr"], got[2]["cpr"])
@@ -180,13 +180,13 @@ def test_adsb_gen_cli(tmp_path, capsys):
     it through the software demodulator."""
     out = tmp_path / "adsb_for_hackrf.bin"
     rc = playback.main([
-        "adsb-gen", str(out), "--icao", "ABCDEF", "--callsign", "TPUGNSS1",
+        "adsb-gen", str(out), "--icao", "ABCDEF", "--callsign", "GNSSRX1",
         "--lat", "52.25", "--lon", "4.0", "--alt-ft", "38000", "--verify"])
     assert rc == 0
     text = capsys.readouterr().out
     assert "hackrf_transfer -s 2000000 -f 1176450000" in text
     assert "3 CRC-valid frames" in text
-    assert "TPUGNSS1" in text and "lat=52.25" in text
+    assert "GNSSRX1" in text and "lat=52.25" in text
     raw = np.fromfile(out, dtype=np.int8)
     assert len(raw) % 2 == 0 and np.abs(raw).max() == 100
     assert np.all(raw[1::2] == 0)  # Q rail idle, OOK on I

@@ -7,7 +7,7 @@ solver keeps producing a fix every 4 s throughout
 test streams a long 1-bit capture with a mid-run SV dropout through the
 full chain at bounded memory and asserts all of that end to end.
 
-The on-hardware analog (>= 60 s on the real TPU, with RSS tracking) is
+The on-device analog (>= 60 s on the GPU, with RSS tracking) is
 tools/soak_payload.py, which shares this scene recipe.
 """
 

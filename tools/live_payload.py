@@ -1,4 +1,4 @@
-"""Live-personality bench on real hardware: follow a 1x-realtime writer.
+"""Live-personality bench on the device: follow a 1x-realtime writer.
 
 A writer thread paces the 60 s soak capture into a growing file at
 exactly 1x realtime (the rig's sampling rate); the receiver tails it
@@ -6,11 +6,15 @@ with FollowSource1Bit and solves IN-STREAM.  Reported per fix: delivery
 latency behind the RF timeline (wall clock at delivery minus the
 snapshot's scene time) — the end-to-end latency a live operator sees,
 which the reference cannot even instrument.  Also: worst reader lag
-behind the write frontier and the stall/EOF status.
+behind the write frontier and the stall/EOF status.  The capture comes
+from a CPU-only child (tools/soak_scene_gen.py, the soak scene), so this
+process is the only one on the card.  Prints one JSON line.
 """
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import json
+import subprocess
+import tempfile
 import threading
 import time
 
@@ -19,26 +23,24 @@ import numpy as np
 from tpu_gnss.utils.jaxcache import enable_persistent_cache
 enable_persistent_cache()
 
-import jax, jax.numpy as jnp
-_t0 = time.perf_counter()
-print("alive:", np.asarray(jnp.arange(2) + 1),
-      f"({time.perf_counter()-_t0:.1f}s)", flush=True)
-
 from tpu_gnss.config import ReceiverConfig
 from tpu_gnss.io.stream import FollowSource1Bit
 from tpu_gnss.receiver import Receiver
 import tests.test_e2e as E
 
 DURATION = float(os.environ.get("LIVE_DURATION_S", "60"))
-src_path = os.path.join("/tmp", f"soak_1bit_{int(DURATION)}.bin")
-if not os.path.exists(src_path):
-    # the soak payload generates it; regenerate here if absent
-    import subprocess
-    r = subprocess.run([sys.executable, "-u", "tools/soak_payload.py"],
-                       cwd=os.path.dirname(os.path.dirname(
-                           os.path.abspath(__file__))),
-                       env=dict(os.environ, SOAK_DURATION_S=str(DURATION)))
-    assert os.path.exists(src_path)
+TMP = tempfile.gettempdir()
+src_path = os.path.join(TMP, f"soak_1bit_{int(DURATION)}.bin")
+if not os.path.exists(src_path + ".rx.npy"):
+    # the soak scene (SV index 0 blocked over [20, 28) s), generated by a
+    # CPU-only child before this process opens the card
+    gen = subprocess.run(
+        [sys.executable, "-u", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "soak_scene_gen.py"),
+         src_path, str(DURATION), "0", "20.0", "28.0"],
+        capture_output=True, text=True,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert gen.returncode == 0, gen.stderr[-2000:]
 rx = np.load(src_path + ".rx.npy")
 payload = open(src_path, "rb").read()
 
@@ -51,7 +53,7 @@ cfg = ReceiverConfig(fs=E.FS, fc=fc, max_fo=5000.0, fft_len=4096,
 # warm-start phase's 0.5 s; a chunk shape traces its own tracker
 # program, and an untraced shape makes the warm-start phase pay a
 # multi-second compile catch-up it then reports as fix latency)
-warm_path = "/tmp/live_warm.bin"
+warm_path = os.path.join(TMP, "live_warm.bin")
 open(warm_path, "wb").write(payload[: len(payload) // 4])
 open(warm_path + ".done", "w").close()
 recv = Receiver(cfg)
@@ -68,7 +70,7 @@ from tpu_gnss.utils import progcache
 progcache.wait_exports(timeout=120.0)
 print("exports settled", flush=True)
 
-live_path = "/tmp/live_feed.bin"
+live_path = os.path.join(TMP, "live_feed.bin")
 for p in (live_path, live_path + ".done"):
     if os.path.exists(p):
         os.remove(p)
@@ -158,7 +160,7 @@ from tests.test_pvt import make_constellation
 ephs = make_constellation(6, t_oe=E.T_OE)
 warm = {E.eph_prn(k): e for k, e in enumerate(ephs)}
 
-warm_live = "/tmp/live_feed_warm.bin"
+warm_live = os.path.join(TMP, "live_feed_warm.bin")
 for p in (warm_live, warm_live + ".done"):
     if os.path.exists(p):
         os.remove(p)
@@ -221,11 +223,5 @@ print(f"warm start: first live fix at wall {first_warm}s "
       f"median latency at chunk_s={WARM_CHUNK_S}: "
       f"{artifact['warm_median_latency_s']}s", flush=True)
 
-_name = ("BENCH_live.json" if DURATION == 60
-         else f"BENCH_live{int(DURATION)}.json")
-out = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), _name)
-with open(out, "w") as f:
-    json.dump(artifact, f, indent=1)
 print(json.dumps({k: v for k, v in artifact.items() if k != "fixes"}))
 print("PAYLOAD_DONE" if artifact["passed"] else "PAYLOAD_FAILED")

@@ -1,13 +1,15 @@
 """Long-capture soak on real hardware: 60 s 1-bit stream, bounded memory.
 
 Streams a >= 60 s 1-bit IF capture (with a mid-run SV blockage) through
-the COMPLETE chain on the real TPU — acquisition, tracking, watchdog,
+the COMPLETE chain on the device — acquisition, tracking, watchdog,
 re-acquisition, NAV decode, 4 s PVT cadence — and reports wall clock,
 peak RSS, fix cadence coverage, and worst-case fix error.  The
 continuous-operation property of the reference's live rig
 (c/solve.cpp:300; c/channel.cpp:211-254 SignalLost) as one artifact.
 
 Shares the scene recipe with tests/test_soak.py (the CI-sized variant).
+The scene is generated by a CPU-only child (tools/soak_scene_gen.py), so
+this process is the only one on the card.  Prints one JSON line.
 """
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -50,7 +52,8 @@ if not (os.path.exists(path) and os.path.exists(rx_path)):
         [sys.executable, "-u", os.path.join(repo, "tools",
                                             "soak_scene_gen.py"),
          path, str(DURATION), str(DROP_SV), str(DROP_T0), str(DROP_T1)],
-        capture_output=True, text=True)
+        capture_output=True, text=True,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert gen.returncode == 0, gen.stderr[-2000:]
     print(gen.stdout.strip(), flush=True)
 rx = np.load(rx_path)
@@ -144,11 +147,5 @@ artifact = dict(metric="soak_realtime_factor",
                 hist_mb=round(hist_mb, 2),
                 fix_series=fix_series,
                 passed=bool(ok))
-_name = ("BENCH_soak.json" if DURATION == 60
-         else f"BENCH_soak{int(DURATION)}.json")
-out = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), _name)
-with open(out, "w") as f:
-    json.dump(artifact, f, indent=1)
 print(json.dumps(artifact))
 print("PAYLOAD_DONE" if ok else "PAYLOAD_FAILED")

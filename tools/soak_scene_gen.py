@@ -4,7 +4,8 @@ Synthesizes the N-second 6-SV scene (segmented, bounded temporaries)
 and writes the 1-bit IF capture + truth position.  Kept out-of-process
 so the soak artifact's peak RSS measures the RECEIVER, not fixture
 generation (whose dominant cost is the scene's own complex64 array —
-~16 MB per capture second).
+~16 MB per capture second).  Forced onto the CPU: the parent holds the
+card.
 
 Usage: soak_scene_gen.py <out.bin> <duration_s> [drop_sv drop_t0 drop_t1]
 """
@@ -12,7 +13,7 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
 

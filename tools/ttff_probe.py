@@ -12,8 +12,8 @@ files the payload already built:
 
 Prints one line ``TTFF_RESULT {json}`` with:
   ttff_s        process start (before jax import) -> first fix
-  ttff_ctor_s   Receiver construction -> first fix (the BENCH_e2e
-                convention used by the in-process passes)
+  ttff_ctor_s   Receiver construction -> first fix (the convention
+                of tools/e2e_payload.py's in-process passes)
   import_s      interpreter start -> jax client ready
   stages        per-stage wall breakdown of the run
 """

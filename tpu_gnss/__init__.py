@@ -1,6 +1,6 @@
-"""tpu_gnss — TPU-native GPS L1 C/A software receiver framework.
+"""tpu_gnss — GPS L1 C/A software receiver framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of the
+A from-scratch JAX/XLA re-design of the capability surface of the
 reference GNSS-GPS-SDR toolkit (JiaoXianjun/GNSS-GPS-SDR): signal synthesis,
 FFT acquisition, DLL/Costas tracking, NAV/ephemeris decode, PVT solve, and
 capture-format tooling — batched over (PRN x Doppler x block) grids and

@@ -1,4 +1,4 @@
-"""Batched FFT acquisition (PCPS) — the reference's search stage, TPU-first.
+"""Batched FFT acquisition (PCPS) — the reference's search stage as array work.
 
 The reference walks a serial double loop: 32 PRNs x ~73 Doppler bins, each
 doing a 40000-point spectrum shift-multiply and inverse FFT on one CPU core

@@ -13,7 +13,7 @@ Two block-consumption modes:
   reference's packetized reader (reference: c/search_offline.cpp:129-139).
   One "run" therefore spans 32 blocks, each searched for one PRN.
 * ``native``: every fft_len-sample block is searched for all 32 PRNs at
-  once (the batched grid is essentially free on TPU), stride fft_len.
+  once (one batched grid per block), stride fft_len.
 
 Argument note: the reference accepts ``max_fo`` on the command line but
 never assigns it (reference: c/test_search_offline.cpp:31-38 parses only
@@ -53,7 +53,7 @@ def format_run_tables(run_count: int, hits: list[dict],
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="gps_test",
-        description="TPU-native GPS C/A code offline search "
+        description="GPS C/A code offline search on an accelerator "
                     "(gps_test-compatible output)")
     p.add_argument("filename", help="bit-packed 1-bit IF capture")
     p.add_argument("fc", type=float, nargs="?", default=4.092e6,
@@ -65,8 +65,7 @@ def main(argv=None) -> int:
     p.add_argument("--mode", choices=["compat", "native", "folded"],
                    default="compat",
                    help="compat: reference-exact block sweep; native: all "
-                        "PRNs per block; folded: fast engine (fused MXU "
-                        "kernel on TPU)")
+                        "PRNs per block; folded: fast folded engine")
     p.add_argument("--threshold", type=float, default=25.0)
     p.add_argument("--max-runs", type=int, default=None)
     p.add_argument("--quirk-ignore-max-fo", action="store_true",
@@ -85,7 +84,7 @@ def main(argv=None) -> int:
         print(f"can not open file: {args.filename}", file=sys.stderr)
         return 2
     print("tpu_gnss C/A code offline search "
-          "(capability parity with gps_test; TPU-native backend)")
+          "(capability parity with gps_test; JAX backend)")
     print(f"file={args.filename} fc={args.fc:g} fs={args.fs:g} "
           f"max_fo={max_fo:g} mode={args.mode}")
 

@@ -223,7 +223,7 @@ def build_parser() -> argparse.ArgumentParser:
     ag.add_argument("out_file", help="interleaved int8 I/Q output")
     ag.add_argument("--icao", type=lambda s: int(s, 16), default=0xABCDEF,
                     help="24-bit ICAO address, hex")
-    ag.add_argument("--callsign", default="TPUGNSS1")
+    ag.add_argument("--callsign", default="GNSSRX1")
     ag.add_argument("--lat", type=float, default=52.2572)
     ag.add_argument("--lon", type=float, default=3.9194)
     ag.add_argument("--alt-ft", type=float, default=38000.0)

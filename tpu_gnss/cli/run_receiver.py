@@ -22,7 +22,7 @@ from ..utils import metrics
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="gps_receiver",
-        description="TPU-native full GPS receiver on a capture file")
+        description="full GPS receiver on a capture file")
     p.add_argument("filename",
                    help="capture file, or rtltcp://host:port for live "
                         "SDR ingest from an rtl_tcp server")

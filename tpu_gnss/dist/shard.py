@@ -4,7 +4,7 @@ The reference's only inter-processor transport is a 16-opcode SPI
 command/response link between the Pi and the FPGA (reference: c/spi.cpp,
 c/spi.h); its acquisition grid is a serial double loop on one core.  Here
 the (PRN x Doppler x block) grid is sharded over a `jax.sharding.Mesh` and
-the peak search is combined with XLA collectives over ICI/DCN:
+the peak search is combined with XLA collectives:
 
 * **Doppler sharding** (latency): each device searches a contiguous slice
   of the Doppler grid for all SVs; per-device bests are all-gathered and
@@ -89,33 +89,31 @@ def acquire_from_fft_sharded(data_fft: jnp.ndarray, code_ffts: jnp.ndarray,
 
 @functools.partial(jax.jit,
                    static_argnames=("mesh", "fs", "lo_rate", "n_coherent",
-                                    "dop_chunk", "period", "nf",
-                                    "from_bits", "interpret"))
-def acquire_folded_sharded(blocks: jnp.ndarray, cw_r: jnp.ndarray,
-                           cw_i: jnp.ndarray, dops_hz: jnp.ndarray, *,
+                                    "dop_chunk", "period", "from_bits"))
+def acquire_folded_sharded(blocks: jnp.ndarray, code_ffts_p: jnp.ndarray,
+                           dops_hz: jnp.ndarray, *,
                            mesh: Mesh, fs: float, lo_rate: float,
                            n_coherent: int, dop_chunk: int = 16,
-                           period: int = 0, nf: int = 0,
-                           from_bits: bool = True,
-                           interpret: bool = False):
-    """Block+Doppler sharded folded acquisition through the MXU kernel.
+                           period: int = 0, from_bits: bool = True):
+    """Block+Doppler sharded folded acquisition.
 
-    The fast single-chip engine (tpu_gnss.ops.mxu_corr) is also the
+    The single-device batched engine
+    (:func:`tpu_gnss.acquire.folded.acquire_folded_batch`) is also the
     scale-out engine: each (blk, dop) device wipes/folds/correlates its
     capture blocks over its contiguous Doppler slice, then per-device
     bests are all-gathered and reduced in device order (ascending
     Doppler, so tie-breaks match the serial scan).  ``dops_hz`` must
     divide by mesh['dop'] (:func:`pad_dops`), ``blocks`` by mesh['blk'].
     """
-    from ..acquire.folded import FoldedResult, acquire_folded_batch_mxu
+    from ..acquire.folded import FoldedResult, acquire_folded_batch
     assert blocks.shape[0] % mesh.shape["blk"] == 0
     assert dops_hz.shape[0] % mesh.shape["dop"] == 0
 
-    def body(blocks_local, cw_r, cw_i, dops_local):
-        res = acquire_folded_batch_mxu(
-            blocks_local, cw_r, cw_i, dops_local, fs=fs, lo_rate=lo_rate,
+    def body(blocks_local, code_ffts_p, dops_local):
+        res = acquire_folded_batch(
+            blocks_local, code_ffts_p, dops_local, fs=fs, lo_rate=lo_rate,
             n_coherent=n_coherent, dop_chunk=dop_chunk,
-            from_bits=from_bits, period=period, nf=nf, interpret=interpret)
+            from_bits=from_bits, period=period)
         snr_g = jax.lax.all_gather(res.snr, "dop")    # [ndev, blk, n_sv]
         dop_g = jax.lax.all_gather(res.doppler_hz, "dop")
         lag_g = jax.lax.all_gather(res.ca_shift, "dop")
@@ -125,16 +123,16 @@ def acquire_folded_sharded(blocks: jnp.ndarray, cw_r: jnp.ndarray,
 
     fn = jax.shard_map(
         body, mesh=mesh,
-        in_specs=(P("blk"), P(), P(), P("dop")),
+        in_specs=(P("blk"), P(), P("dop")),
         out_specs=FoldedResult(P("blk"), P("blk"), P("blk")),
         check_vma=False)
-    return fn(blocks, cw_r, cw_i, dops_hz)
+    return fn(blocks, code_ffts_p, dops_hz)
 
 
 def make_tracker_sharded(*, mesh: Mesh, axis: str = "blk", fs: float,
                          pll_gains, dll_gains, epochs_per_step: int = 1,
                          have_code_ffts: bool = False,
-                         agc_thresholds=None, use_pallas=None):
+                         agc_thresholds=None):
     """Build a reusable channel-sharded tracking step.
 
     Returns ``fn(samples, state, code_tables, code_ffts_or_None,
@@ -159,7 +157,6 @@ def make_tracker_sharded(*, mesh: Mesh, axis: str = "blk", fs: float,
                             epochs_per_step=epochs_per_step,
                             code_ffts=code_ffts_l,
                             agc_thresholds=agc_thresholds,
-                            use_pallas=use_pallas,
                             aid_offset_hz=aid)
 
     fn_cache: dict = {}
@@ -215,20 +212,18 @@ def track_epochs_sharded(samples: jnp.ndarray, state, code_tables, *,
 @functools.partial(jax.jit,
                    static_argnames=("mesh", "fs", "lo_rate", "n_coherent",
                                     "n_noncoherent", "dop_chunk", "period",
-                                    "nf", "from_bits", "interpret"))
-def acquire_refined_sharded(samples: jnp.ndarray, cw_r: jnp.ndarray,
-                            cw_i: jnp.ndarray, code_ffts_p: jnp.ndarray,
+                                    "from_bits"))
+def acquire_refined_sharded(samples: jnp.ndarray, code_ffts_p: jnp.ndarray,
                             dops_pad: jnp.ndarray, *, mesh: Mesh, fs: float,
                             lo_rate: float, n_coherent: int,
                             n_noncoherent: int = 1, dop_chunk: int = 64,
-                            period: int = 0, nf: int = 0,
-                            from_bits: bool = True,
-                            interpret: bool = False) -> jnp.ndarray:
-    """Doppler-sharded one-round-trip cold search: kernel grid + refine.
+                            period: int = 0,
+                            from_bits: bool = True) -> jnp.ndarray:
+    """Doppler-sharded one-round-trip cold search: grid reduce + refine.
 
-    The mesh version of :func:`tpu_gnss.acquire.folded.acquire_refined_mxu`
-    — each device reduces its contiguous Doppler slice through the fused
-    MXU kernel, the per-bin SNR rows are all-gathered (ascending-Doppler
+    The mesh version of :func:`tpu_gnss.acquire.folded.acquire_refined`
+    — each device reduces its contiguous Doppler slice to per-bin
+    bests, the per-bin SNR rows are all-gathered (ascending-Doppler
     order, so the argmax tie-break matches the single-device scan), and
     the ±2-bin window refinement (`_refine_from_centers`, the SAME
     arithmetic as single-device) runs replicated.  Returns the stacked
@@ -238,34 +233,32 @@ def acquire_refined_sharded(samples: jnp.ndarray, cw_r: jnp.ndarray,
     (use :func:`pad_dops`); padding replays the last bin and cannot win
     the first-max argmax.
     """
-    from ..acquire.folded import _corr_reduce_grid_mxu, _refine_from_centers
+    from ..acquire.folded import _corr_reduce_grid, _refine_from_centers
     ndev = mesh.shape["dop"]
     assert dops_pad.shape[0] % (ndev * dop_chunk) == 0
 
-    def body(samples, cw_r, cw_i, code_ffts_p, dops_local, dops_full):
+    def body(samples, code_ffts_p, dops_local, dops_full):
         iq = (mix_baseband(samples, lo_rate) if from_bits
               else samples.astype(jnp.complex64))
         block = n_coherent * period
         blocks = iq[: n_noncoherent * block].reshape(n_noncoherent, block)
-        pk, lg, tt = _corr_reduce_grid_mxu(
-            blocks, cw_r, cw_i, dops_local, fs=fs, n_coherent=n_coherent,
-            dop_chunk=dop_chunk, period=period, nf=nf, interpret=interpret,
-            accumulate=True)
+        pk, _, tt = _corr_reduce_grid(
+            blocks, code_ffts_p, dops_local, fs=fs, n_coherent=n_coherent,
+            dop_chunk=dop_chunk, period=period, accumulate=True)
         nd_local = dops_local.shape[0]
         snr_local = (pk / (tt / period))[0, :, :nd_local]  # [sv, nd_local]
         snr_g = jax.lax.all_gather(snr_local, "dop", axis=1, tiled=True)
         centers = dops_full[jnp.argmax(snr_g, axis=-1)]
         return _refine_from_centers(blocks, code_ffts_p, centers,
                                     dops_full, fs=fs,
-                                    n_coherent=n_coherent,
-                                    period=period, nf=nf)
+                                    n_coherent=n_coherent, period=period)
 
     fn = jax.shard_map(
         body, mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P("dop"), P()),
+        in_specs=(P(), P(), P("dop"), P()),
         out_specs=P(),
         check_vma=False)
-    return fn(samples, cw_r, cw_i, code_ffts_p, dops_pad, dops_pad)
+    return fn(samples, code_ffts_p, dops_pad, dops_pad)
 
 
 @functools.partial(jax.jit,

@@ -7,8 +7,8 @@
 // as accurate as single-precision fftwf for the parity comparison.
 //
 // This is deliberately a correctness tool (builds the reference gps_test
-// for golden diffing), not a performance path: the TPU framework's
-// transforms run on device via XLA / the fused Pallas DFT kernels.
+// for golden diffing), not a performance path: the JAX framework's
+// transforms run on device via XLA.
 
 #include "fftw3.h"
 

@@ -1,11 +1,11 @@
 // tpu_gnss native host-side sample ingest.
 //
-// TPU-native equivalent of the reference's native sample frontends: the
+// Native equivalent of the reference's sample frontends: the
 // bit-packed file reader + unpacker (reference: c/search_offline.cpp:121-157)
 // and the int8 I/Q deinterleavers used by the conversion tools
 // (reference: c/conv_1bit_bin_to_hackrf_bin.cpp).  The device does all the
 // math; this library only turns packed capture bytes into dense arrays at
-// memory-bandwidth speed so host ingest never gates the TPU.
+// memory-bandwidth speed so host ingest never gates the device.
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image).
 

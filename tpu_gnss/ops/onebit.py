@@ -2,21 +2,9 @@
 
 Captures are bit-packed (LSB-first, reference: c/search_offline.cpp:141-146).
 Transferring packed uint32 words to the device and unpacking there cuts
-host->device traffic 8x versus sending unpacked bytes — significant when
-the device link is a tunnel, and the right layout for large capture scans
-generally.
-
-Two implementations of the same op:
-
-* :func:`unpack_bits` / :func:`mix_packed` — plain XLA (shift/mask +
-  factored square-wave LO), fully fused by the compiler; the portable
-  default.
-* :func:`mix_packed_pallas` — a Pallas TPU kernel fusing unpack + bipolar
-  map + LO mix in VMEM, one HBM read of the packed words and one write of
-  the I/Q planes.
-
-Both produce float32 (I, Q) planes; complex assembly happens in the
-consumer's jit (complex never crosses the host boundary).
+host->device traffic 8x versus sending unpacked bytes.  The unpack
+(shift/mask) and the factored square-wave LO mix are plain XLA, fused by
+the compiler into the consumer's program.
 """
 
 from __future__ import annotations
@@ -53,14 +41,6 @@ def unpack_bits(words: jnp.ndarray, n_bits: int) -> jnp.ndarray:
     return bits.reshape(-1)[:n_bits].astype(jnp.int32)
 
 
-def unpack_bits_planes(words: jnp.ndarray, n_bits: int) -> jnp.ndarray:
-    """Plane-packed ``[rows, 128]`` words -> {0,1} int32 bits (XLA path)."""
-    k = jnp.arange(32, dtype=jnp.uint32)
-    w = words.astype(jnp.uint32)
-    bits = (w[:, None, :] >> k[None, :, None]) & jnp.uint32(1)  # [r, k, c]
-    return bits.reshape(-1)[:n_bits].astype(jnp.int32)
-
-
 @functools.partial(jax.jit,
                    static_argnames=("n_bits", "lo_rate", "variant"))
 def mix_packed(words: jnp.ndarray, *, n_bits: int, lo_rate: float,
@@ -77,111 +57,3 @@ def mix_packed(words: jnp.ndarray, *, n_bits: int, lo_rate: float,
     bits = unpack_bits(words, n_bits)
     return mix_baseband(bits, lo_rate, variant,
                         phase0_quarters=phase0_quarters)
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel
-# ---------------------------------------------------------------------------
-
-_LANES = 128
-_ROW_BITS = 32 * _LANES  # bits produced per word-row
-
-
-def pack_bits_planes(bits: np.ndarray) -> np.ndarray:
-    """Host-side bit-PLANE packing for the Pallas kernel.
-
-    Within each 4096-bit row, word ``(r, c)`` holds bit ``k`` of capture
-    sample ``r*4096 + k*128 + c`` — so the kernel's natural
-    ``[rows*32, 128]`` output IS the sample order with no lane-crossing
-    reshape (Mosaic rejects those).  Returns ``[n_rows, 128]`` uint32,
-    zero-padded to whole rows.
-    """
-    bits = np.asarray(bits, dtype=np.uint32)
-    pad = (-len(bits)) % _ROW_BITS
-    if pad:
-        bits = np.concatenate([bits, np.zeros(pad, np.uint32)])
-    b = bits.reshape(-1, 32, _LANES)            # [rows, k, c]
-    k = np.arange(32, dtype=np.uint32)[None, :, None]
-    return (b << k).sum(axis=1, dtype=np.uint32)
-
-
-def _mix_kernel_factory(lo_rate: float, i_tbl, q_tbl, rows_per_block: int):
-    from jax.experimental import pallas as pl  # noqa: F401
-
-    sub = rows_per_block * 32  # output sublanes per block
-
-    def kernel(words_ref, out_i_ref, out_q_ref):
-        mi = jax.lax.broadcasted_iota(jnp.int32, (sub, _LANES), 0)
-        ci = jax.lax.broadcasted_iota(jnp.int32, (sub, _LANES), 1)
-        r = mi // 32
-        k = mi % 32
-        blk = pl.program_id(0)
-        # bit index = blk*R*4096 + r*4096 + k*128 + c; phase = idx*lo_rate
-        # mod 4, range-reduced per level so f32 stays precise
-        base = (jnp.float32((rows_per_block * _ROW_BITS * lo_rate) % 4.0)
-                * blk.astype(jnp.float32)) % 4.0
-        ph = (base
-              + (r.astype(jnp.float32)
-                 * jnp.float32((_ROW_BITS * lo_rate) % 4.0)) % 4.0
-              + (k.astype(jnp.float32)
-                 * jnp.float32((_LANES * lo_rate) % 4.0)) % 4.0
-              + (ci.astype(jnp.float32) * jnp.float32(lo_rate)) % 4.0) % 4.0
-        p = ph.astype(jnp.int32)
-
-        w = pltpu_repeat_rows(words_ref[:], 32)        # [sub, 128]
-        bits = ((w.astype(jnp.uint32) >> k.astype(jnp.uint32))
-                & jnp.uint32(1)).astype(jnp.int32)
-        s = (1 - 2 * bits).astype(jnp.float32)
-
-        def signs(tbl):
-            out = jnp.ones_like(s)
-            for phase in range(4):
-                out = jnp.where(p == phase,
-                                jnp.float32(1.0 - 2.0 * tbl[phase]), out)
-            return out
-
-        out_i_ref[:] = s * signs(i_tbl)
-        out_q_ref[:] = s * signs(q_tbl)
-
-    return kernel
-
-
-def pltpu_repeat_rows(x: jnp.ndarray, n: int) -> jnp.ndarray:
-    """Repeat each row n times consecutively ([R, L] -> [R*n, L])."""
-    return jnp.repeat(x, n, axis=0)
-
-
-def mix_packed_pallas(words: jnp.ndarray, *, n_bits: int, lo_rate: float,
-                      variant: str = "offline", rows_per_block: int = 8,
-                      interpret: bool = False) -> jnp.ndarray:
-    """Plane-packed words -> complex64 baseband via a fused Pallas kernel.
-
-    ``words``: ``[n_rows, 128]`` uint32 from :func:`pack_bits_planes`;
-    ``n_rows`` must be a multiple of ``rows_per_block``.  Output is
-    truncated to ``n_bits``.
-    """
-    from jax.experimental import pallas as pl
-    from ..io.loaders import LO_TABLES
-    i_tbl, q_tbl = LO_TABLES[variant]
-
-    n_rows = words.shape[0]
-    assert words.shape[1] == _LANES
-    assert n_rows % rows_per_block == 0
-    grid = (n_rows // rows_per_block,)
-    kernel = _mix_kernel_factory(lo_rate, i_tbl, q_tbl, rows_per_block)
-
-    out_shape = jax.ShapeDtypeStruct((n_rows * 32, _LANES), jnp.float32)
-    sub = rows_per_block * 32
-    out_i, out_q = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec((rows_per_block, _LANES),
-                               lambda b: (b, 0))],
-        out_specs=(pl.BlockSpec((sub, _LANES), lambda b: (b, 0)),
-                   pl.BlockSpec((sub, _LANES), lambda b: (b, 0))),
-        out_shape=(out_shape, out_shape),
-        interpret=interpret,
-    )(words.astype(jnp.int32) if words.dtype != jnp.int32 else words)
-    iq = (out_i.reshape(-1)[:n_bits]
-          + 1j * out_q.reshape(-1)[:n_bits]).astype(jnp.complex64)
-    return iq

@@ -7,7 +7,7 @@ per-iteration ECI rotation of satellite positions, and WGS-84 geodetic
 conversion — but uses ``np.linalg.solve`` on the weighted normal equations
 instead of the reference's hand-expanded 4x4 determinant inverse
 (c/solve.cpp:211-235), float64 on host (a 4-unknown problem at 0.25 Hz is
-not TPU work; the reference runs it on a Pi for the same reason).
+not accelerator work; the reference runs it on a Pi for the same reason).
 """
 
 from __future__ import annotations

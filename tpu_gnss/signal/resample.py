@@ -10,8 +10,8 @@ device ops:
 * :func:`fir_stream` — block FIR with carried tail state, bit-exact with
   one-shot convolution over the concatenated stream.
 * :class:`PolyphaseResampler` — rational L/M resampling as a polyphase
-  matmul (taps reshaped to [L, n_taps/L] so the inner product lands on
-  the MXU for wide blocks), with streaming state.
+  matmul (taps reshaped to [L, n_taps/L] so the inner product is one
+  matrix product for wide blocks), with streaming state.
 * :func:`design_lowpass` — windowed-sinc design (MATLAB fir1 analog).
 * :func:`remove_dc` — per-rail DC offset removal.
 """
